@@ -1,25 +1,23 @@
 """Probe-axis parallelism: correctness + cost of sharding the Hutchinson
 probe axis (the CNF analog of context parallelism, SURVEY §5).
 
-Two measurements (round-3 verdict item 7 — the ("data","probe") mesh was
-correctness-tested but no artifact showed probe sharding *helping*):
+Two measurements:
 
 A. Virtual mesh (CPU, 8 fake devices): K=8 Hutchinson train step on a
    1-device mesh vs probe-sharded over ("data"=1, "probe"=8).  Reports
    max|loss delta| (must be ~f32 epsilon — same math, psum over probes) and
    the step-time ratio.  CPU devices share one host's cores, so the timing
    is a *structure* check (does the sharded program parallelize the probe
-   loop), not an ICI-speedup claim.
+   loop), not an interconnect-speedup claim.
 
-B. Real chip: per-NFE cost of the K-probe fused TRAIN stage for
-   K in {1,2,4,8} on one chip.  The probe loop is the kernel's unrolled
-   inner loop, so cost(K) is ~affine in K; its slope is exactly what an
-   N-way probe-sharded mesh divides (each device runs K/N probes + one
-   (1,B) psum per stage-batch).
+B. One accelerator: per-NFE cost of the K-probe TRAIN forward solve for
+   K in {1,2,4,8}.  cost(K) is ~affine in K; its slope is what an N-way
+   probe-sharded mesh divides (each device runs K/N probes + one (1,B)
+   psum per stage).
 
 Run: python benchmarks/probe_scaling.py --part a   (CPU virtual mesh)
-     python benchmarks/probe_scaling.py --part b   (real TPU)
-Writes/merges probe sections into SCALING_r04.json with --out.
+     python benchmarks/probe_scaling.py --part b   (one accelerator)
+Writes/merges probe sections into a JSON file with --out.
 """
 
 import argparse
@@ -107,10 +105,9 @@ def part_b():
     import jax.numpy as jnp
 
     import continuousnf_tpu as cnf
-    from bench import measure_rtt, time_scanned
+    from bench import device_record, time_scanned
     from continuousnf_tpu import Mode
 
-    rtt = measure_rtt()
     nvars, naug = 8, 8
     nn = cnf.MLP((16, 48, 16))
     xs = jax.random.uniform(jax.random.PRNGKey(1), (4096, nvars))
@@ -119,7 +116,7 @@ def part_b():
     for K in (1, 2, 4, 8):
         icnf = cnf.construct(
             cnf.RNODE, nn, nvars, naug, tspan=(0.0, 13.0), lam3=1e-2,
-            compute_mode=cnf.VecJacMode(num_probes=K, fused=True),
+            compute_mode=cnf.VecJacMode(num_probes=K),
         )
         ps = icnf.init(jax.random.PRNGKey(0))
 
@@ -127,7 +124,7 @@ def part_b():
             lp, _, st = cnf.inference(icnf, Mode.TRAIN, c[0], ps, key=key)
             return (c[0] + 1e-7 * jnp.tanh(lp)[:, None], c[1] + st.nfe)
 
-        dt = time_scanned(step, (xs, 0), length=8, rtt=rtt)
+        dt = time_scanned(step, (xs, 0), length=8)
 
         @jax.jit
         def nfe_of(x, icnf=icnf, ps=ps):
@@ -144,22 +141,23 @@ def part_b():
     base = curve[ks[0]]["us_per_nfe"]
     slope = (curve[ks[-1]]["us_per_nfe"] - base) / (ks[-1] - ks[0])
     out = {
-        "what": "per-NFE cost of the K-probe fused TRAIN stage on ONE chip, "
-        "batch 4096 (the curve an N-way probe-sharded mesh divides)",
+        "what": "per-NFE cost of the K-probe TRAIN forward solve on ONE "
+        "device, batch 4096 (the curve an N-way probe-sharded mesh divides)",
+        **device_record(),
         "curve": curve,
         "us_per_nfe_probe_slope": round(slope, 3),
         "k1_base_us": base,
         # Sharding K=8 probes over 8 devices leaves K/N = 1 probe per device:
         # cost(K/N) = base + slope*(K/N - 1) = base (the per-stage (1, B) psum
-        # cost is NOT modeled here; SCALING's collective microbench measures
-        # it separately).
+        # cost is NOT modeled here; benchmarks/scaling.py --collective-bench
+        # measures it separately).
         "implied_8probe_8dev_us_per_nfe": round(base + slope * (8 / 8 - 1), 3),
         "note": "cost(K) ~ base + slope*(K-1); probe-sharding K=8 over 8 "
         "devices runs 1 probe/device + a (1,B) psum per stage (psum cost "
         "excluded here) — variance of a K=8 estimate at ~K=1 latency",
     }
-    print(json.dumps({"k_probe_cost_curve_tpu": out}))
-    return {"k_probe_cost_curve_tpu": out}
+    print(json.dumps({"k_probe_cost_curve": out}))
+    return {"k_probe_cost_curve": out}
 
 
 def main():

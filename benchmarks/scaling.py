@@ -1,11 +1,12 @@
 """Scaling-efficiency benchmark: samples/s vs number of devices.
 
-BASELINE target: >=80% linear samples/s scaling at N>=2 workers.  With one
-real chip in this environment, the multi-device path is exercised on a faked
-N-device CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count), which
-validates the sharding/collective structure and measures parallel efficiency
-of the compiled program (CPU devices share host memory bandwidth, so treat
-CPU efficiency numbers as a lower bound).
+BASELINE target: >=80% linear samples/s scaling at N>=2 workers.  This
+script exercises the multi-device path on a faked N-device CPU mesh
+(XLA_FLAGS=--xla_force_host_platform_device_count), which validates the
+sharding/collective structure and measures parallel efficiency of the
+compiled program (CPU devices share host memory bandwidth, so treat CPU
+efficiency numbers as a lower bound).  Scaling across real GPUs is not
+measured here.
 
 Run: python benchmarks/scaling.py [--devices 8] [--batch-per-device 512]
 """
@@ -22,9 +23,6 @@ def main():
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--batch-per-device", type=int, default=512)
     ap.add_argument("--iters", type=int, default=5)
-    # Measured per-step wall time on the real chip (bench.py train_step_ms)
-    # used for the communication-model efficiency projection.
-    ap.add_argument("--step-ms-tpu", type=float, default=14.4)
     ap.add_argument(
         "--fixed-budget", action="store_true",
         help="pin the whole process to ONE physical core so the total "
@@ -35,8 +33,7 @@ def main():
         "--collective-bench", action="store_true",
         help="time psum on the virtual mesh across message sizes, fit the "
         "latency-bandwidth (alpha-beta) model, and report the implied "
-        "gradient all-reduce cost; validates the projection's STRUCTURE "
-        "(the hardware constants come from the ICI spec).")
+        "gradient all-reduce cost on the virtual mesh.")
     args = ap.parse_args()
 
     if args.fixed_budget:
@@ -97,9 +94,8 @@ def main():
 
     if args.collective_bench:
         # alpha-beta fit of psum on the virtual mesh.  CPU-mesh constants are
-        # NOT ICI constants — the point is validating that collective time is
-        # affine in bytes (t = alpha + bytes/beta) so the projection's form
-        # holds; the projection then substitutes the ICI alpha/beta.
+        # not an interconnect's constants — the point is validating that
+        # collective time is affine in bytes (t = alpha + bytes/beta).
         from functools import partial
         from jax.experimental.shard_map import shard_map
         from jax.sharding import Mesh, PartitionSpec as P
@@ -155,34 +151,12 @@ def main():
 
     # Wall-clock on a faked CPU mesh is bounded by physical cores, not by the
     # program: with C cores, N forced devices time-share and the measurable
-    # ceiling is min(C/N, 1).  The hardware-independent scaling picture is the
-    # communication-volume model (the scaling-book method): data-parallel CNF
-    # training all-reduces only the gradient pytree once per step, so
-    #   t_comm ~= 2 * param_bytes / ici_bw      (ring all-reduce)
-    #   efficiency ~= t_compute / (t_compute + t_comm)
-    # with t_compute the measured per-step time on the real chip (BENCH).
-    icnf = cnf.construct(cnf.RNODE, nn, nvars, naug)
-    n_params = sum(x.size for x in jax.tree.leaves(icnf.init(key)))
-    param_bytes = n_params * 4
-    ici_bw = 4.5e10  # bytes/s per link, v5e ICI (conservative single-link)
-    dcn_bw = 2.5e9  # bytes/s per host NIC share (conservative)
-    t_step = args.step_ms_tpu * 1e-3
-    proj = {}
-    for name, bw, lat in (("ici", ici_bw, 1e-6), ("dcn", dcn_bw, 25e-6)):
-        t_comm = 2.0 * param_bytes / bw + lat
-        proj[name] = round(t_step / (t_step + t_comm), 6)
+    # ceiling is min(C/N, 1).
     out = {
         "mode": "fixed_total_core_budget" if args.fixed_budget else "free",
         "scaling_measured_cpu": results,
         "host_physical_cores": os.cpu_count(),
-        "note": (
-            "CPU-mesh wall clock is core-bound (ceiling min(cores/N,1)); the "
-            "projection uses measured TPU step time + all-reduce volume."
-        ),
-        "params": n_params,
-        "allreduce_bytes_per_step": 2 * param_bytes,
-        "tpu_step_ms": args.step_ms_tpu,
-        "projected_efficiency": proj,
+        "note": "CPU-mesh wall clock is core-bound (ceiling min(cores/N,1))",
     }
     print(json.dumps(out))
 

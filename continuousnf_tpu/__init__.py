@@ -1,6 +1,6 @@
-"""continuousnf_tpu — a TPU-native continuous-normalizing-flow framework.
+"""continuousnf_tpu — a continuous-normalizing-flow framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of
+Built from scratch in JAX/XLA with the capabilities of
 ContinuousNormalizingFlows.jl (reference mounted at /root/reference):
 the ICNF family (RNODE / FFJORD / Planar and conditional variants),
 augmented dimensions, steering, lambda1/lambda2/lambda3 regularization,

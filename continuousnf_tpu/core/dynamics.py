@@ -1,6 +1,6 @@
 """Augmented CNF dynamics: vector field + divergence (trace) + regularizer rates.
 
-TPU-native redesign of the reference's `augmented_f` family
+Redesign of the reference's `augmented_f` family
 (`/root/reference/src/icnf.jl:110-456`, 12 dispatch variants).  The 12
 variants collapse to two traced functions:
 
@@ -152,14 +152,144 @@ def _exact_train_field(nn_apply, compute_mode: ComputeMode):
     return field
 
 
+def exact_tanh_mlp_trace(params, z: jax.Array):
+    """Closed-form exact divergence of a 2-layer tanh MLP — one forward pass
+    plus an einsum, no Jacobian materialization.
+
+    For f(z) = tanh(tanh(z W1 + b1) W2 + b2):
+        J_ij = dy_j * sum_h W2[h, j] * dh_h * W1[i, h]
+        tr J = einsum(dy_i, W2[h, i], dh_h, W1[i, h])
+    with dh = 1 - h^2, dy = 1 - y^2.  Cost O(B d H) — the same as a single
+    Hutchinson probe but exact: TEST-mode densities (the reference's
+    `jacobian_batched` path, `/root/reference/src/utils.jl:1-54`, costs d
+    AD passes) become as cheap as one probe.
+
+    Returns (y, trace) with shapes ((B, d), (B,)).
+    """
+    (p1, p2) = params
+    w1, b1, w2, b2 = p1["w"], p1["b"], p2["w"], p2["b"]
+    h = jnp.tanh(z @ w1 + b1)
+    y = jnp.tanh(h @ w2 + b2)
+    dh = 1.0 - h * h
+    dy = 1.0 - y * y
+    tr = jnp.einsum("bi,hi,bh,ih->b", dy, w2, dh, w1)
+    return y, tr
+
+
+def is_dense_tanh_chain(nn) -> bool:
+    """True for any Chain of Dense layers with tanh-or-identity activations —
+    the family the closed-form N-layer Jacobian (`exact_dense_chain_jacobian`)
+    covers (`is_two_layer_tanh_mlp` is the 2-layer, biased subset)."""
+    from ..nets.modules import Chain, Dense
+
+    if not isinstance(nn, Chain) or not nn.layers:
+        return False
+    return all(
+        isinstance(l, Dense) and (l.activation is jnp.tanh or l.activation is None)
+        for l in nn.layers
+    )
+
+
+def exact_dense_chain_jacobian(nn, params, z: jax.Array):
+    """Closed-form (y, J) of an N-layer Dense chain; J has shape (B, d, d).
+
+    Each layer h_k = act(h_{k-1} @ W_k + b_k) contributes the per-sample
+    Jacobian factor  d h_k / d h_{k-1} = W_k * act'_k  (column scaling by the
+    activation derivative), so J is the batched left-to-right chain product —
+    cost O(B * d * sum_k H_k) matmul FLOPs with one (B, d, H) tensor alive,
+    vs the d AD passes of the generic identity-basis path (the analog of the
+    reference's `jacobian_batched`, `/root/reference/src/utils.jl:1-54`).
+    Exact math, no estimator: used for TEST densities and exact-divergence
+    TRAIN whenever the architecture matches (e.g. the 3-layer tabular MLPs).
+    """
+    h = z
+    J = None
+    for layer, p in zip(nn.layers, params):
+        a = h @ p["w"]
+        if layer.use_bias:
+            a = a + p["b"]
+        if layer.activation is jnp.tanh:
+            h = jnp.tanh(a)
+            d = 1.0 - h * h  # (B, H_k)
+        else:
+            h = a
+            d = None
+        if J is None:
+            J = jnp.broadcast_to(p["w"], (z.shape[0], *p["w"].shape))
+        else:
+            J = jnp.einsum("bij,jk->bik", J, p["w"])
+        if d is not None:
+            J = J * d[:, None, :]
+    return h, J
+
+
+def exact_dense_chain_trace(nn, params, z: jax.Array):
+    """Closed-form (y, tr(J)) of an N-layer Dense chain WITHOUT materializing
+    the final (B, d, d) Jacobian.
+
+    Same chain product as `exact_dense_chain_jacobian` through layer N-1
+    (C = (B, d, H_{N-1})), but the last factor W_N diag(act'_N) enters only
+    through the trace contraction  tr = sum_{i,h} C[b,i,h] W_N[h,i] d_N[b,i]
+    — an O(B d H) elementwise-reduce instead of the O(B d^2 H) closing
+    matmul, the single most expensive factor at tabular dims (d=43, H=128:
+    ~1 GFLOP/stage saved).  TEST-mode densities use this; exact-divergence
+    TRAIN still needs the full J for the Frobenius rate.
+    """
+    B = z.shape[0]
+    n = len(nn.layers)
+    h = z
+    C = None
+    tr = None
+    for idx, (layer, p) in enumerate(zip(nn.layers, params)):
+        a = h @ p["w"]
+        if layer.use_bias:
+            a = a + p["b"]
+        if layer.activation is jnp.tanh:
+            h = jnp.tanh(a)
+            d = 1.0 - h * h
+        else:
+            h = a
+            d = None
+        if idx == n - 1:
+            if C is None:
+                diag = jnp.diagonal(p["w"])
+                tr = jnp.sum(diag * d, axis=-1) if d is not None else jnp.sum(diag) * jnp.ones((B,), z.dtype)
+            else:
+                t = jnp.einsum("bih,hi->bi", C, p["w"])
+                tr = jnp.sum(t * d, axis=-1) if d is not None else jnp.sum(t, axis=-1)
+        else:
+            if C is None:
+                C = jnp.broadcast_to(p["w"], (B, *p["w"].shape))
+            else:
+                C = jnp.einsum("bij,jk->bik", C, p["w"])
+            if d is not None:
+                C = C * d[:, None, :]
+    return h, tr
+
+
+def is_two_layer_tanh_mlp(nn) -> bool:
+    """True when `nn` is a 2-layer tanh-MLP Chain with biases: the shape the
+    closed-form 2-layer traces cover."""
+    from ..nets.modules import Chain, Dense
+
+    if not isinstance(nn, Chain) or len(nn.layers) != 2:
+        return False
+    for layer in nn.layers:
+        if not isinstance(layer, Dense) or not layer.use_bias:
+            return False
+        if layer.activation is not jnp.tanh:
+            return False
+    return True
+
+
 def exact_tanh_mlp_trace_fro(params, z: jax.Array):
     """Closed-form (dz, trace, ||J||_F) of a 2-layer tanh MLP per sample.
 
-    Extends `ops.fused_dynamics.exact_tanh_mlp_trace` with the exact Jacobian
+    Extends `exact_tanh_mlp_trace` with the exact Jacobian
     Frobenius norm: J[b] = diag-free form J_ij = dy_j * M_ij with
     M = W1 (dh ⊙ .) W2, so ||J||_F^2 = sum_ij M_ij^2 dy_j^2.  Cost O(B d^2 H)
     — the same order as the dz AD passes of the generic path, but a single
-    einsum chain that XLA maps onto the MXU.
+    einsum chain that XLA maps onto one large matmul.
     """
     (p1, p2) = params
     w1, b1, w2, b2 = p1["w"], p1["b"], p2["w"], p2["b"]
@@ -171,8 +301,7 @@ def exact_tanh_mlp_trace_fro(params, z: jax.Array):
     # All dz^2 Jacobian inner sums in ONE (B, H) @ (H, dz^2) matmul:
     # p2m[h, (i,j)] = w1[i,h] * w2[h,j], m[b,i,j] = sum_h w1[i,h] dh w2[h,j].
     # The naive pairwise einsum lowering ("ih,bh,hj->bij") runs B tiny
-    # (dz, H) x (H, dz) matmuls — hostile to the MXU; this form is one big
-    # one (same trick as the fused `_stage_train_exact`).
+    # (dz, H) x (H, dz) matmuls; this form is one large one.
     p2m = (w1.T[:, :, None] * w2[:, None, :]).reshape(w1.shape[1], dz * dz)
     m = (dh @ p2m).reshape(-1, dz, dz)
     tr = jnp.einsum("bii,bi->b", m, dy)
@@ -267,9 +396,7 @@ def make_augmented_dynamics(
         # Closed-form exact divergence for 2-layer tanh MLPs: one forward
         # pass + einsum instead of d AD passes.  Exact math, so it is used
         # whenever the architecture matches (not gated behind a flag).
-        from ..ops.fused_dynamics import is_dense_tanh_chain, supports_fusion
-
-        closed_form = supports_fusion(nn) and passive_aug_dims == 0
+        closed_form = is_two_layer_tanh_mlp(nn) and passive_aug_dims == 0
         # N-layer Dense/tanh chains (e.g. the 3-layer tabular MLPs): exact
         # Jacobian as a batched chain product instead of d AD passes.
         chain_form = (
@@ -284,12 +411,8 @@ def make_augmented_dynamics(
             # Conditioning changes the input dimension (divergence is w.r.t.
             # z only), so the closed forms apply to unconditional calls.
             if closed_form and args.get("ys") is None:
-                from ..ops.fused_dynamics import exact_tanh_mlp_trace
-
                 dz, tr = exact_tanh_mlp_trace(args["ps"], state.z)
             elif chain_form and args.get("ys") is None:
-                from ..ops.fused_dynamics import exact_dense_chain_trace
-
                 dz, tr = exact_dense_chain_trace(nn, args["ps"], state.z)
             elif planar_form:
                 dz, tr = _planar_exact(nn, args["ps"], state.z, args.get("ys"))
@@ -302,9 +425,7 @@ def make_augmented_dynamics(
     if compute_mode.exact_trace:
         # TRAIN with the exact divergence + exact ||J||_F rate (zero-variance
         # analog of the Hutchinson estimator; see ComputeMode.exact_trace).
-        from ..ops.fused_dynamics import is_dense_tanh_chain, supports_fusion
-
-        closed_form = supports_fusion(nn) and passive_aug_dims == 0
+        closed_form = is_two_layer_tanh_mlp(nn) and passive_aug_dims == 0
         chain_form = (
             not closed_form and is_dense_tanh_chain(nn) and passive_aug_dims == 0
         )
@@ -314,8 +435,6 @@ def make_augmented_dynamics(
             if closed_form and args.get("ys") is None:
                 dz, tr, fro = exact_tanh_mlp_trace_fro(args["ps"], state.z)
             elif chain_form and args.get("ys") is None:
-                from ..ops.fused_dynamics import exact_dense_chain_jacobian
-
                 dz, jac = exact_dense_chain_jacobian(nn, args["ps"], state.z)
                 tr = jnp.trace(jac, axis1=-2, axis2=-1)
                 fro = safe_norm(jac.reshape(jac.shape[0], -1))
@@ -331,48 +450,7 @@ def make_augmented_dynamics(
 
         return f_train_exact
 
-    use_fused = False
-    if (
-        compute_mode.fused
-        and compute_mode.ad == ADMode.VJP
-        and compute_mode.num_probes == 1
-        and passive_aug_dims == 0
-    ):
-        from ..ops.fused_dynamics import supports_fusion
-
-        use_fused = supports_fusion(nn)
-
     hutch = _hutchinson_field(nn_apply, compute_mode)
-
-    if use_fused:
-        from ..ops.fused_dynamics import fused_tanh_mlp_dynamics
-
-        interpret = jax.default_backend() != "tpu"
-
-        def f_train_fused(t, state: TrainState, args):
-            if args.get("ys") is not None:
-                # Conditioning changes the network input width; the fused
-                # kernel covers the unconditional net only — fall back.
-                dz, tr_est, n_rate = hutch(args["ps"], state.z, args["ys"], args["eps"])
-                zero = jnp.zeros_like(tr_est)
-                return TrainState(
-                    z=dz,
-                    dlogp=-tr_est,
-                    reg_e=safe_norm(dz) if norm_z else zero,
-                    reg_n=n_rate if norm_j else zero,
-                )
-            dz, tr_est, e_rate, n_rate = fused_tanh_mlp_dynamics(
-                args["ps"], state.z, args["eps"][0], interpret=interpret
-            )
-            zero = jnp.zeros_like(tr_est)
-            return TrainState(
-                z=dz,
-                dlogp=-tr_est,
-                reg_e=e_rate if norm_z else zero,
-                reg_n=n_rate if norm_j else zero,
-            )
-
-        return f_train_fused
 
     def f_train(t, state: TrainState, args):
         dz, tr_est, n_rate = hutch(args["ps"], state.z, args.get("ys"), args["eps"])
@@ -384,4 +462,13 @@ def make_augmented_dynamics(
     return f_train
 
 
-__all__ = ["TestState", "TrainState", "make_augmented_dynamics"]
+__all__ = [
+    "TestState",
+    "TrainState",
+    "make_augmented_dynamics",
+    "exact_tanh_mlp_trace",
+    "exact_dense_chain_jacobian",
+    "exact_dense_chain_trace",
+    "is_dense_tanh_chain",
+    "is_two_layer_tanh_mlp",
+]

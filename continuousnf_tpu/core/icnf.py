@@ -1,6 +1,6 @@
 """ICNF model: construction, inference (log-density), generation, loss.
 
-TPU-native redesign of the reference's core engine
+Redesign of the reference's core engine
 (`/root/reference/src/base_icnf.jl` + `/root/reference/src/icnf.jl:1-104`).
 The reference's 9 compile-time type parameters become fields of a frozen
 dataclass used as static jit configuration; its `VectorMode`/`MatrixMode`
@@ -219,7 +219,6 @@ class ICNF:
                 ("augmented", self.augmented),
                 ("aug_passive", self.aug_passive),
                 ("steered", self.steered),
-                ("fused", cm.fused),
             )
             if on
         ]
@@ -373,16 +372,7 @@ def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
         norm_j=icnf.lam2 != 0.0,
         passive_aug_dims=icnf.n_aug_input if icnf.aug_passive else 0,
     )
-    # Solve-in-kernel fast path: the whole adaptive while-loop runs inside one
-    # Pallas kernel when the model/config supports it (see ops/fused_solve.py)
-    # — conditional models included since round 5 (the ys block rides into
-    # the kernel as extra input rows).
-    from ..ops.fused_solve import make_full_solve
-
-    full_solve = make_full_solve(icnf, mode, batch=state0.z.shape[0])
-    return odeint_with_stats(
-        f, state0, t0, t1, args, icnf.solver, full_solve=full_solve
-    )
+    return odeint_with_stats(f, state0, t0, t1, args, icnf.solver)
 
 
 def _solve_saveat(icnf: ICNF, mode: Mode, state0, args, t0, t1):
@@ -398,17 +388,12 @@ def _solve_saveat(icnf: ICNF, mode: Mode, state0, args, t0, t1):
         norm_j=icnf.lam2 != 0.0,
         passive_aug_dims=icnf.n_aug_input if icnf.aug_passive else 0,
     )
-    from ..ops.fused_solve import make_full_solve
-
-    full_solve = make_full_solve(icnf, mode, batch=state0.z.shape[0])
     if icnf.solver.saveat is not None:
         grid = [jnp.asarray(t, icnf.dtype) for t in icnf.solver.saveat]
     else:
         n_pts = 17
         grid = [t0 + (t1 - t0) * (i / (n_pts - 1)) for i in range(n_pts)]
-    states, stats = odeint_saveat(
-        f, state0, grid, args, icnf.solver, full_solve=full_solve
-    )
+    states, stats = odeint_saveat(f, state0, grid, args, icnf.solver)
     stateT = jax.tree.map(lambda x: x[-1], states)
     ts = jnp.stack([jnp.asarray(t, icnf.dtype) for t in grid])
     return stateT, stats, (ts, states.z)
@@ -493,7 +478,7 @@ def _prepare_inference(icnf, mode, xs, ps, ys, key, eps):
                 )
             # Explicit probes must be (K, B, zdim); a 2-D (B, zdim) array is
             # accepted as K=1 shorthand.  Anything else would surface as an
-            # inscrutable Pallas block-shape error deep in the fused kernel.
+            # inscrutable broadcasting error deep in the field.
             eps = jnp.asarray(eps, icnf.dtype)
             K = icnf.compute_mode.num_probes
             if eps.ndim == 2:
@@ -739,10 +724,6 @@ def adjoint_stats(
         norm_j=icnf.lam2 != 0.0,
         passive_aug_dims=icnf.n_aug_input if icnf.aug_passive else 0,
     )
-    from ..ops.fused_solve import make_full_solve
-
-    full_solve = make_full_solve(icnf, mode, batch=state0.z.shape[0])
-
     def cotangent_fn(stateT):
         logpx = icnf.base_logpdf(stateT.z) - stateT.dlogp
         if ldj is not None:
@@ -765,7 +746,7 @@ def adjoint_stats(
     from ..ode.solve import backsolve_stats
 
     _, fwd_stats, bwd_stats = backsolve_stats(
-        f, state0, t0, t1, args, cotangent_fn, icnf.solver, full_solve
+        f, state0, t0, t1, args, cotangent_fn, icnf.solver
     )
     return fwd_stats, bwd_stats
 

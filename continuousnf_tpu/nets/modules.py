@@ -1,9 +1,9 @@
 """Core functional modules: Dense, Chain, MLP, conditional wrapper.
 
-Design notes (TPU-first):
+Design notes:
   * Arrays are batch-major `(..., features)` — the transpose of the
     reference's Julia column-major `(features, batch)` convention — so the
-    feature axis lands on TPU lanes and batched matmuls hit the MXU as
+    feature axis is the contiguous one and batched matmuls are
     `(B, d_in) @ (d_in, d_out)`.
   * Weights are stored `(d_in, d_out)`; Lux-style glorot-uniform init
     (matching `Lux.Dense`'s default used throughout the reference README).

@@ -1,6 +1,6 @@
 """Differentiable, jit-compiled ODE solvers.
 
-The TPU-native replacement for the reference's delegated solver stack
+The replacement for the reference's delegated solver stack
 (OrdinaryDiffEqDefault + SciMLSensitivity, `/root/reference/Project.toml:28-31`,
 invoked at `/root/reference/src/base_icnf.jl:141`): embedded explicit
 Runge–Kutta methods with a PI step-size controller inside `lax.while_loop`,

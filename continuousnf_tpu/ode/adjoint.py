@@ -34,28 +34,20 @@ def _forward_opts(opts: SolverOptions) -> SolverOptions:
     return dataclasses.replace(opts, adjoint=Adjoint.NONE)
 
 
-def odeint_backsolve_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args, full_solve=None):
+def odeint_backsolve_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args):
     """Entry point used by `solve.odeint_with_stats` for Adjoint.BACKSOLVE.
 
     `func_flat(yf, t, args) -> dyf` operates on the flat state.  Closed-over
     tracers are converted to explicit arguments before the custom_vjp wrapper
     so they receive gradients.
-
-    `full_solve`, when given, replaces the *forward* solve only (e.g. the
-    Pallas solve-in-kernel megakernel); the backward adjoint re-integration
-    always uses `func_flat`, so gradients are unaffected by how the forward
-    trajectory was computed (up to its floating-point noise).
     """
     converted, consts = jax.closure_convert(func_flat, y0f, t0, args)
-    return _odeint_backsolve(converted, opts, full_solve, y0f, t0, t1, args, tuple(consts))
+    return _odeint_backsolve(converted, opts, y0f, t0, t1, args, tuple(consts))
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
-def _odeint_backsolve(func, opts, full_solve, y0f, t0, t1, args, consts):
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1))
+def _odeint_backsolve(func, opts, y0f, t0, t1, args, consts):
     from .solve import _solve_forward_flat
-
-    if full_solve is not None:
-        return full_solve.forward(y0f, t0, t1, args)
 
     def ff(yf, t, pk):
         a, c = pk
@@ -64,24 +56,17 @@ def _odeint_backsolve(func, opts, full_solve, y0f, t0, t1, args, consts):
     return _solve_forward_flat(ff, _forward_opts(opts), y0f, t0, t1, (args, consts))
 
 
-def _odeint_backsolve_fwd(func, opts, full_solve, y0f, t0, t1, args, consts):
-    yf, stats = _odeint_backsolve(func, opts, full_solve, y0f, t0, t1, args, consts)
-    # stats rides in the residuals so the backward integration can warm-start
-    # its controller from the forward solve's final step size (stats.dt_last).
-    return (yf, stats), (yf, stats, t0, t1, args, consts)
+def _odeint_backsolve_fwd(func, opts, y0f, t0, t1, args, consts):
+    yf, stats = _odeint_backsolve(func, opts, y0f, t0, t1, args, consts)
+    return (yf, stats), (yf, t0, t1, args, consts)
 
 
-def _backward_integrate(
-    func, opts, full_solve, yT, t0, t1, args, consts, g_y, fwd_stats=None
-):
+def _backward_integrate(func, opts, yT, t0, t1, args, consts, g_y):
     """The BACKSOLVE backward integration, shared by the custom_vjp rule and
     the observability probe `backward_stats_flat`.
 
     Returns (a_y0, dt0, dt1, g_args, g_consts, stats) — the custom_vjp rule
-    drops `stats` (a VJP cannot return extra outputs), the probe keeps them
-    (round-4 verdict item 4: the backward solve's attempt/NFE counts were
-    unobservable, so per-NFE adjoint cost could only be inferred by
-    slope-fitting; see tools/roofline_audit.py / bench.py).
+    drops `stats` (a VJP cannot return extra outputs), the probe keeps them.
     """
     from .solve import _solve_forward_flat
 
@@ -91,24 +76,6 @@ def _backward_integrate(
     # dL/dt1 = <g, f(y(t1), t1)>  (gradient of the solution w.r.t. the end time)
     f_T = f_of(t1, yT, args, consts)
     dt1 = jnp.sum(g_y * f_T).astype(t1.dtype)
-
-    if (
-        full_solve is not None
-        and getattr(full_solve, "adjoint", None) is not None
-        and not consts
-    ):
-        # Fused backward: the whole adjoint integration runs in one Pallas
-        # kernel (ops/fused_solve.py).  consts must be empty — the kernel
-        # computes gradients only w.r.t. args.  The forward solve's final
-        # step size warm-starts the backward controller (skips the second
-        # Hairer pick, ~100-200 us of fixed overhead per grad step).
-        dt_warm = getattr(fwd_stats, "dt_last", None) if fwd_stats is not None else None
-        y0_rec, a_y0, g_args, stats = full_solve.adjoint(
-            yT, g_y, args, t1, t0, dt_warm=dt_warm
-        )
-        f_0 = f_of(t0, y0_rec, args, consts)
-        dt0 = (-jnp.sum(a_y0 * f_0)).astype(t0.dtype)
-        return a_y0, dt0, dt1, g_args, (), stats
 
     # The Hutchinson probes are Monte-Carlo constants, not parameters: their
     # cotangent would be integrated at full (K, B, zdim) width through every
@@ -165,19 +132,16 @@ def _backward_integrate(
     return a_y0, dt0, dt1, g_args, g_consts, stats
 
 
-def _odeint_backsolve_bwd(func, opts, full_solve, residuals, cotangents):
-    yT, fwd_stats, t0, t1, args, consts = residuals
+def _odeint_backsolve_bwd(func, opts, residuals, cotangents):
+    yT, t0, t1, args, consts = residuals
     g_y, _g_stats = cotangents
     a_y0, dt0, dt1, g_args, g_consts, _stats = _backward_integrate(
-        func, opts, full_solve, yT, t0, t1, args, consts, g_y, fwd_stats
+        func, opts, yT, t0, t1, args, consts, g_y
     )
     return (a_y0, dt0, dt1, g_args, g_consts)
 
 
-def backward_stats_flat(
-    func_flat, opts: SolverOptions, yTf, t0, t1, args, g_yf, full_solve=None,
-    fwd_stats=None,
-):
+def backward_stats_flat(func_flat, opts: SolverOptions, yTf, t0, t1, args, g_yf):
     """Measured SolveStats of the BACKSOLVE backward integration for the
     given final state and cotangent — exactly the integration the custom_vjp
     runs but with its statistics kept.  The analog of the NFE accounting the
@@ -187,8 +151,7 @@ def backward_stats_flat(
     """
     converted, consts = jax.closure_convert(func_flat, yTf, t0, args)
     *_, stats = _backward_integrate(
-        converted, opts, full_solve, yTf, t0, t1, args, tuple(consts), g_yf,
-        fwd_stats,
+        converted, opts, yTf, t0, t1, args, tuple(consts), g_yf
     )
     return stats
 

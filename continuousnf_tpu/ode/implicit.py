@@ -210,10 +210,10 @@ def esdirk_step(
     k_i == 0 and the step is the identity, matching the explicit path).
     """
     # The Newton/GMRES internals (vdots, the tiny dense solve) must run at
-    # honest f32: on TPU the default single-pass-bf16 MXU rounding (~1e-3
-    # relative) sits above the Newton residuals being resolved, which inflates
-    # the embedded error estimate and collapses dt — the same noise-floor
-    # failure `SolverOptions.stage_precision` fixes for the field itself.
+    # full f32: reduced-precision matmul rounding would sit above the Newton
+    # residuals being resolved, inflate the embedded error estimate and
+    # collapse dt — the same noise-floor failure
+    # `SolverOptions.stage_precision` guards against for the field itself.
     with jax.default_matmul_precision("highest"):
         return _esdirk_step_impl(f, tab, t, dt, y, k1)
 

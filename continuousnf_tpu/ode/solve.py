@@ -3,7 +3,7 @@
 Everything operates on a single flat state vector (pytree states are raveled
 once at the boundary), so the controller math is a handful of fused
 vector ops — the per-step cost is dominated by the user's vector field, which
-is where the MXU work lives.
+is where the matmul work lives.
 
 Semantics mirror the reference's use of `SciMLBase.solve`
 (`/root/reference/src/base_icnf.jl:137-143`): one solve advances the *entire*
@@ -58,12 +58,6 @@ class SolveStats(NamedTuple):
     steps: jax.Array  # total attempted steps
     accepted: jax.Array  # accepted steps
     nfe: jax.Array  # vector-field evaluations
-    # Final (post-accept) step size of the solve; None where not tracked.
-    # Seeds the BACKSOLVE backward integration's controller (the standard
-    # warm-start heuristic) so the backward solve skips its Hairer
-    # initial-dt pick — measured ~100-200 us of per-grad-step fixed
-    # overhead on the fused path (round 5).
-    dt_last: Any = None
 
 
 def _rms_norm(x: jax.Array) -> jax.Array:
@@ -260,7 +254,6 @@ def _solve_adaptive_while(f, tab, y0, t0, t1, rtol, atol, max_steps, dt0):
         steps=final.steps,
         accepted=final.accepted,
         nfe=final.steps * nfe_per + (2 if dt0 is None else 1),
-        dt_last=final.dt,
     )
     return final.y, stats
 
@@ -339,14 +332,11 @@ def _solve_fixed_scan(f, tab, y0, t0, t1, num_steps: int):
 def _solve_forward_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args):
     """Dispatch the non-custom-vjp solve paths on the flat state.
 
-    The field is traced under `stage_precision` matmul precision (default
-    HIGHEST): on TPU the default single-pass-bf16 MXU rounding (~1e-3
-    relative) sits at the solver's rtol target, so the embedded error
-    estimate measures matmul noise instead of truncation error and the
-    controller grinds at a tiny-dt noise floor — 10-100x the needed steps
-    (measured: TEST rtol=1e-5 on the flagship took 10,000 capped steps at
-    default precision vs ~30 on f32 CPU).  Honest f32 stages cost ~3x per
-    matmul and repay it tenfold in step count.
+    The field is traced under the resolved `stage_precision` matmul
+    precision (`types.resolve_stage_precision`): matmul rounding near the
+    solver's rtol would make the embedded error estimate measure rounding
+    noise instead of truncation error, and the controller would shrink the
+    step to a noise floor.
     """
     tab = get_tableau(opts.method, opts.rtol)
     from ..types import resolve_stage_precision
@@ -415,7 +405,6 @@ def odeint_with_stats(
     t1,
     args: Any = None,
     opts: SolverOptions = SolverOptions(),
-    full_solve: Callable = None,
 ) -> Tuple[Any, SolveStats]:
     """Integrate `dy/dt = func(t, y, args)` from t0 to t1 (t1 < t0 runs backward).
 
@@ -423,13 +412,6 @@ def odeint_with_stats(
     state and solve statistics (attempted/accepted steps, NFE).  Gradient
     behavior is selected by `opts.adjoint`; for BACKSOLVE the stats carry no
     gradients.
-
-    `full_solve(y0f, t0, t1, args) -> (yTf, stats)`, when given, replaces the
-    forward while-loop solve on the flat state with a fused implementation
-    (the solve-in-kernel Pallas megakernel, `ops/fused_solve.py`).  It is
-    forward-only: under BACKSOLVE it substitutes the custom_vjp's forward pass
-    (gradients still come from the adjoint re-integration with `func`); the
-    DIRECT and fixed-step paths ignore it.
     """
     y0f, unravel = ravel_pytree(y0)
     t0 = jnp.asarray(t0, y0f.dtype)
@@ -449,29 +431,18 @@ def odeint_with_stats(
         yT = y0
         stats = None
         for i in range(len(grid) - 1):
-            yT, st = odeint_with_stats(
-                func, yT, grid[i], grid[i + 1], args, seg_opts, full_solve=full_solve
-            )
+            yT, st = odeint_with_stats(func, yT, grid[i], grid[i + 1], args, seg_opts)
             stats = st if stats is None else SolveStats(
                 steps=stats.steps + st.steps,
                 accepted=stats.accepted + st.accepted,
                 nfe=stats.nfe + st.nfe,
-                dt_last=st.dt_last,
             )
         return yT, stats
 
     if opts.adjoint == Adjoint.BACKSOLVE and opts.fixed_num_steps is None:
         from .adjoint import odeint_backsolve_flat
 
-        yf, stats = odeint_backsolve_flat(
-            func_flat, opts, y0f, t0, t1, args, full_solve=full_solve
-        )
-    elif (
-        full_solve is not None
-        and opts.adjoint == Adjoint.NONE
-        and opts.fixed_num_steps is None
-    ):
-        yf, stats = full_solve.forward(y0f, t0, t1, args)
+        yf, stats = odeint_backsolve_flat(func_flat, opts, y0f, t0, t1, args)
     else:
         yf, stats = _solve_forward_flat(func_flat, opts, y0f, t0, t1, args)
     return unravel(yf), stats
@@ -485,7 +456,6 @@ def backsolve_stats(
     args: Any,
     cotangent_fn: Callable[[Any], jax.Array],
     opts: SolverOptions = SolverOptions(),
-    full_solve: Callable = None,
 ) -> Tuple[Any, "SolveStats", "SolveStats"]:
     """Forward solve + MEASURED backward-integration statistics.
 
@@ -493,27 +463,21 @@ def backsolve_stats(
     `cotangent_fn(yT_state) -> scalar` to seed the adjoint (its gradient
     w.r.t. the final state is the cotangent the real loss backward passes
     in), then runs the SAME backward integration the BACKSOLVE custom_vjp
-    runs — but keeps its SolveStats, which the VJP protocol cannot return
-    (round-4 verdict item 4).  Returns (yT_state, fwd_stats, bwd_stats).
+    runs — but keeps its SolveStats, which the VJP protocol cannot return.
+    Returns (yT_state, fwd_stats, bwd_stats).
     """
     y0f, unravel = ravel_pytree(y0)
     t0 = jnp.asarray(t0, y0f.dtype)
     t1 = jnp.asarray(t1, y0f.dtype)
     func_flat = _make_func_flat(func, unravel, opts)
-    if full_solve is not None:
-        yTf, fwd_stats = full_solve.forward(y0f, t0, t1, args)
-    else:
-        yTf, fwd_stats = _solve_forward_flat(
-            func_flat, dataclasses.replace(opts, adjoint=Adjoint.NONE),
-            y0f, t0, t1, args,
-        )
+    yTf, fwd_stats = _solve_forward_flat(
+        func_flat, dataclasses.replace(opts, adjoint=Adjoint.NONE),
+        y0f, t0, t1, args,
+    )
     g_yf = jax.grad(lambda yf: cotangent_fn(unravel(yf)))(yTf)
     from .adjoint import backward_stats_flat
 
-    bwd_stats = backward_stats_flat(
-        func_flat, opts, yTf, t0, t1, args, g_yf, full_solve=full_solve,
-        fwd_stats=fwd_stats,
-    )
+    bwd_stats = backward_stats_flat(func_flat, opts, yTf, t0, t1, args, g_yf)
     return unravel(yTf), fwd_stats, bwd_stats
 
 
@@ -523,7 +487,6 @@ def odeint_saveat(
     t_grid,
     args: Any = None,
     opts: SolverOptions = SolverOptions(),
-    full_solve: Callable = None,
 ) -> Tuple[Any, "SolveStats"]:
     """Integrate with intermediate saves: sequential adaptive segment solves
     over the fixed time grid `t_grid` (length T+1, including both endpoints).
@@ -535,10 +498,8 @@ def odeint_saveat(
     (`/root/reference/src/base_icnf.jl:137-143`) — the repo's solver
     normally keeps only the final state (the CNF hot path); this entry
     point recovers the transport trajectory for diagnostics/visualization.
-    Each segment reuses the solve-in-kernel megakernel when available
-    (`full_solve`), one launch per segment; the step controller restarts
-    per segment (fresh Hairer initial-dt pick), a valid — if slightly more
-    conservative — error control.
+    The step controller restarts per segment (fresh Hairer initial-dt pick),
+    a valid — if slightly more conservative — error control.
     """
     import jax.numpy as _jnp
 
@@ -546,9 +507,7 @@ def odeint_saveat(
     stats = None
     y = y0
     for i in range(len(t_grid) - 1):
-        y, st = odeint_with_stats(
-            func, y, t_grid[i], t_grid[i + 1], args, opts, full_solve=full_solve
-        )
+        y, st = odeint_with_stats(func, y, t_grid[i], t_grid[i + 1], args, opts)
         states.append(y)
         stats = st if stats is None else SolveStats(
             steps=stats.steps + st.steps,

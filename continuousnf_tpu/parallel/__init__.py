@@ -1,7 +1,7 @@
 """Multi-device / multi-host scaling.
 
 The reference is single-process single-device (SURVEY §2.3: no DP/TP/PP, no
-communication backend).  This package is the from-scratch TPU scale-out
+communication backend).  This package is the from-scratch scale-out
 mandated by BASELINE: a `Mesh` over ("data", "probe") axes, batch sharding +
 Hutchinson-probe sharding with XLA collectives inserted by the compiler, and
 multi-host initialization.

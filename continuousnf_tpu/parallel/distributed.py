@@ -3,8 +3,8 @@
 The reference has no multi-process capability (SURVEY §2.3); this is the
 jax.distributed-based scale-out: one process per host, global mesh spanning
 all hosts, per-host shards assembled into global arrays so the training step
-is identical to the single-host case (collectives ride ICI within a slice and
-DCN across slices, chosen by the compiler from the mesh layout).
+is identical to the single-host case (the compiler inserts the collectives
+from the mesh layout).
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ def initialize_distributed(
 ) -> None:
     """Initialize the multi-host JAX runtime.
 
-    No-op when running single-process (the common dev path).  On a pod slice,
-    call once per host before any jax op; arguments default to the cluster
-    environment (TPU metadata / env vars) as `jax.distributed.initialize`
-    auto-detects them.
+    No-op when running single-process (the common dev path).  With several
+    processes, call once per process before any jax op.  Arguments left None
+    are auto-detected by `jax.distributed.initialize` where the cluster
+    environment provides them; where it does not, pass the coordinator
+    address, process count and process id.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -3,7 +3,8 @@
 The CNF analog of sequence/context parallelism (SURVEY §5): the two
 embarrassingly-parallel axes of the augmented dynamics are the **batch** axis
 and the **Hutchinson probe** axis — both reduce into the loss, so sharding
-either one turns the final mean into a psum that XLA compiles onto ICI.
+either one turns the final mean into a psum that XLA compiles into a
+collective.
 """
 
 from __future__ import annotations
@@ -43,8 +44,7 @@ def make_mesh(config: Optional[MeshConfig] = None, devices: Optional[Sequence] =
     """Build a Mesh over ("data", "probe").
 
     Default: all local devices on the data axis.  Device order follows
-    `jax.devices()`, which JAX arranges so that neighboring mesh coordinates
-    are ICI neighbors on TPU slices.
+    `jax.devices()`.
     """
     if devices is None:
         devices = jax.devices()

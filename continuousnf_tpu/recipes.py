@@ -33,16 +33,7 @@ from .core.icnf import construct, inference, RNODE, FFJORD
 from .distributions import Beta
 from .nets import MLP
 from .train.fit import ICNFModel, FitResult, fit, transform
-from .types import Mode, VecJacMode
-
-
-def _default_fused(fused: "bool | None") -> bool:
-    """Recipes run the solve-in-kernel megakernels by default on TPU (the
-    whole recipe family is kernel-eligible since round 5 — N-layer chains
-    and conditional nets included); pass fused= explicitly to override."""
-    if fused is None:
-        return jax.default_backend() == "tpu"
-    return fused
+from .types import Mode
 
 
 @dataclasses.dataclass
@@ -77,7 +68,6 @@ def beta_unaugmented(
     n_epochs: int = 800,
     batch_size: int = 128,
     lr: float = 1e-3,
-    fused: "bool | None" = None,
 ) -> Tuple[FitResult, DensityReport]:
     """RNODE on Beta(2,4), naug=0, tanh MLP, tspan=(0,13).
 
@@ -96,7 +86,6 @@ def beta_unaugmented(
     nn = MLP((1, 64, 64, 1))
     icnf = construct(
         RNODE, nn, 1, 0, tspan=(0.0, 13.0), steer_rate=0.1,
-        compute_mode=VecJacMode(fused=_default_fused(fused)),
         input_bijector="logit",
     )
     steps = n_epochs * (-(-n // batch_size))
@@ -257,7 +246,6 @@ def conditional_gaussian(
     n_epochs: int = 400,
     batch_size: int = 128,
     lr: float = 1e-3,
-    fused: "bool | None" = None,
 ) -> Tuple[FitResult, DensityReport]:
     """CondRNODE conditional density estimation (BASELINE config #3).
 
@@ -275,7 +263,6 @@ def conditional_gaussian(
     nn = MLP((2, 64, 64, 1))  # input = concat([x, y])
     icnf = construct(
         CondRNODE, nn, 1, 0, tspan=(0.0, 13.0), steer_rate=0.1,
-        compute_mode=VecJacMode(fused=_default_fused(fused)),
     )
     steps = n_epochs * (-(-n // batch_size))
     opt = optax.lion(optax.cosine_decay_schedule(lr, steps, alpha=0.02), b1=0.9, b2=0.99)
@@ -296,7 +283,6 @@ def toy2d(
     n_epochs: int = 300,
     batch_size: int = 256,
     lr: float = 1e-3,
-    fused: "bool | None" = None,
 ) -> Tuple[FitResult, float]:
     """FFJORD on a 2D toy (BASELINE config #2): Hutchinson training,
     exact-trace evaluation.  Returns (result, mean TEST log-likelihood)."""
@@ -306,7 +292,6 @@ def toy2d(
     nn = MLP((2, 32, 32, 2))
     icnf = construct(
         FFJORD, nn, 2, 0, tspan=(0.0, 8.0),
-        compute_mode=VecJacMode(fused=_default_fused(fused)),
     )
     steps = n_epochs * (-(-n // batch_size))
     opt = optax.lion(optax.cosine_decay_schedule(lr, steps, alpha=0.02), b1=0.9, b2=0.99)

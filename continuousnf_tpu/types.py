@@ -1,6 +1,6 @@
 """Core type system: modes, compute modes, solver options.
 
-TPU-native re-design of the reference's type layer
+Re-design of the reference's type layer
 (`/root/reference/src/types.jl:1-36`).  The reference encodes Test/Train as
 singleton types and the trace-estimation strategy as a 4-way ComputeMode type
 tree (`DIVecJacVectorMode` / `DIJacVecVectorMode` / `DIVecJacMatrixMode` /
@@ -46,7 +46,7 @@ class EpsDist(enum.Enum):
 
     The reference draws probes from MvNormal(0, I)
     (`/root/reference/src/base_icnf.jl:22-25`); Rademacher probes have lower
-    variance for trace estimation and are provided as a TPU-friendly extra.
+    variance for trace estimation and are provided as an extra.
     """
 
     GAUSSIAN = "gaussian"
@@ -58,7 +58,7 @@ class ComputeMode:
     """Static trace-computation configuration.
 
     Collapses the reference's VectorMode/MatrixMode distinction: everything is
-    batched on TPU; single samples are a batch of one (the reference's
+    batched; single samples are a batch of one (the reference's
     VectorMode semantics fall out of `vmap`/broadcasting).
 
     Attributes:
@@ -68,24 +68,11 @@ class ComputeMode:
                   `/root/reference/src/base_icnf.jl:277-278`; K>1 reduces the
                   estimator variance as 1/K and gives a shardable probe axis).
       eps_dist:   probe distribution.
-      fused:      use the Pallas fused dynamics kernel when the network shape
-                  supports it (MLP); falls back to the XLA path otherwise.
-      bf16:       pin the fused kernels' stage matmuls to bfloat16 inputs
-                  (f32 state, controller, and accumulation).  On TPU, JAX's
-                  DEFAULT matmul precision already feeds the MXU single-pass
-                  bf16 for f32 operands, so this is a no-op there unless the
-                  process raises `jax_default_matmul_precision` (e.g. to
-                  "highest") — the flag then keeps the fused path on the fast
-                  MXU mode.  The induced field error (~1e-3 relative) is at
-                  the solver's default rtol.  Only affects the fused (Pallas)
-                  path.
     """
 
     ad: ADMode = ADMode.VJP
     num_probes: int = 1
     eps_dist: EpsDist = EpsDist.GAUSSIAN
-    fused: bool = False
-    bf16: bool = False
     # exact_trace=True replaces the TRAIN-mode Hutchinson estimator with the
     # exact divergence (the TEST-mode math) and the exact Jacobian Frobenius
     # norm for the lambda2 rate.  Same objective in expectation — Hutchinson
@@ -178,36 +165,21 @@ class SolverOptions:
     # single-segment solve (the hot path).
     tstops: Optional[Tuple[float, ...]] = None
     # Matmul precision the vector field is traced at inside the solver
-    # ("auto" | "high" | "highest" | "float32" | "default").  On TPU,
-    # "default" feeds f32 operands through the MXU's single-pass bf16 mode
-    # (~1e-3 relative rounding) — at the solver's own rtol that noise floods
-    # the embedded error estimate and the controller grinds at a tiny-dt
-    # noise floor (measured 16x step inflation at rtol=1e-3; see
-    # `ode/solve._solve_forward_flat`).  "high" (bf16_3x; the megakernels
-    # use the equivalent hand-written split, `ops/fused_solve._mm`) has
-    # ~1e-4 effective inner-product noise: at working tolerances
-    # (rtol >= 1e-3) that costs ~16% extra steps and repays ~1.6x faster
-    # matmuls (round-5 on-chip: net ~1.3x faster solves); at tight
-    # tolerances it would grind like "default" does at 1e-3.  "auto" (the
-    # default) therefore picks "high" at rtol >= 1e-3 and "highest" (f32
-    # emulation, honest at any tolerance) below — see
-    # `resolve_stage_precision`.
+    # ("auto" | "high" | "highest" | "float32" | "default").  Reduced-
+    # precision f32 products ("default", "high") round at about the solver's
+    # own rtol; that noise floods the embedded error estimate and the
+    # controller shrinks the step to a noise floor (on an H100 the flagship
+    # Hutchinson TRAIN solve took ~6x the forward attempts of "highest" at
+    # rtol 1e-3, and the step ran 2.7-4.3x slower).  "auto" (the default)
+    # therefore resolves to "highest" — see `resolve_stage_precision`.
     stage_precision: str = "auto"
 
 
-
-
-#: rtol threshold of the "auto" stage-precision split: bf16_3x's ~1e-4
-#: effective noise must sit well below the tolerance target.
-AUTO_PRECISION_RTOL = 1.0e-3
-
-
 def resolve_stage_precision(opts: "SolverOptions") -> str:
-    """The effective stage precision for a solve ("auto" resolved by rtol)."""
+    """The effective stage precision for a solve ("auto" -> "highest")."""
     p = getattr(opts, "stage_precision", "auto")
-    if p == "auto":
-        return "high" if opts.rtol >= AUTO_PRECISION_RTOL else "highest"
-    return p
+    return "highest" if p == "auto" else p
+
 
 #: The reference README's recommended tight tolerances
 #: (`/root/reference/README.md:61-67`): reltol = sqrt(eps(Float32)),

@@ -1,20 +1,13 @@
-"""Utilities: profiling/roofline accounting, debug guards."""
+"""Utilities: timing/tracing helpers, debug guards, the compile cache."""
 
-from .profiling import (
-    ChipSpec,
-    V5E,
-    fused_dynamics_cost,
-    roofline_report,
-    time_chained,
-)
+from .profiling import time_chained, trace
 from .debug import enable_nan_debugging, assert_finite
+from .cache import enable_compile_cache
 
 __all__ = [
-    "ChipSpec",
-    "V5E",
-    "fused_dynamics_cost",
-    "roofline_report",
     "time_chained",
+    "trace",
     "enable_nan_debugging",
     "assert_finite",
+    "enable_compile_cache",
 ]

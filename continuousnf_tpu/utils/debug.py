@@ -1,4 +1,4 @@
-"""Debug & quality guards — the TPU analog of the reference's static quality
+"""Debug & quality guards — the JAX analog of the reference's static quality
 gates (SURVEY §5: Aqua ambiguity/piracy checks and JET type-stability become,
 in a traced/jit world: retrace-count guards, NaN debugging, and shape/dtype
 assertions on the public entry points).

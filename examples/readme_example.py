@@ -26,6 +26,10 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from continuousnf_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
+
     import continuousnf_tpu as cnf
     from continuousnf_tpu import Mode
 
@@ -70,8 +74,9 @@ def main():
     result = cnf.fit(model, r, key=fit_key, verbosity=1)
 
     # Store it / reload it
-    cnf.save_checkpoint("fitted.msgpack", result.ps)
-    ps = cnf.load_checkpoint("fitted.msgpack", jax.tree.map(jnp.zeros_like, result.ps))
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "fitted.npz")
+    cnf.save_checkpoint(ckpt, result.ps)
+    ps = cnf.load_checkpoint(ckpt, jax.tree.map(jnp.zeros_like, result.ps))
 
     # Use it
     d = cnf.ICNFDist(icnf, Mode.TEST, ps)

@@ -1,11 +1,11 @@
-"""Transport-trajectory visualization (round-4 verdict item 7).
+"""Transport-trajectory visualization.
 
 Trains a tiny FFJORD on the two-moons toy, extracts the transport paths of a
 handful of samples with `inference(..., trajectory=True)`, and plots data ->
 base-distribution paths.  The reference exposes this through the
 `sol_kwargs` passthrough (`save_everystep`/`saveat` to `SciMLBase.solve`,
-`/root/reference/src/base_icnf.jl:137-143`); here the fixed-grid segmented
-solve reuses the megakernel per segment.
+`/root/reference/src/base_icnf.jl:137-143`); here it is a fixed-grid
+segmented solve.
 
 Usage:  python examples/trajectory_plot.py [--epochs 60] [--out traj.png]
 """
@@ -26,6 +26,10 @@ def main():
     ap.add_argument("--out", default="trajectories.png")
     args = ap.parse_args()
 
+    from continuousnf_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
+
     import continuousnf_tpu as cnf
     from continuousnf_tpu import Mode
     from continuousnf_tpu import data as toy
@@ -38,7 +42,6 @@ def main():
     r = toy.two_moons(dkey, args.n)
     icnf = cnf.construct(
         cnf.FFJORD, cnf.MLP((2, 32, 32, 2)), 2, 0, tspan=(0.0, 8.0),
-        compute_mode=cnf.VecJacMode(fused=jax.default_backend() == "tpu"),
     )
     model = ICNFModel(
         icnf, optimizers=(optax.lion(1e-3),), n_epochs=args.epochs, batch_size=256

@@ -22,7 +22,7 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="experiments/ckpt/f_r3e_a.msgpack")
+    ap.add_argument("--ckpt", default="experiments/ckpt/f_r3e_a.npz")
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--rtol", type=float, default=1e-5)
     ap.add_argument("--cpu", action="store_true")

@@ -2,7 +2,7 @@
 
 Loads the sweep_r3j member checkpoints (same data seed, independent inits),
 scores each member and every ensemble prefix on the gate sample at tight
-tolerance, and prints gate metrics per size.  Run on TPU or CPU.
+tolerance, and prints gate metrics per size.  Run on a GPU or the CPU.
 
 Usage: python experiments/ensemble_eval.py [--members 8] [--cpu]
 """
@@ -22,7 +22,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--members", type=int, default=8)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--ckpt-tpl", default="experiments/ckpt/f_ens_m{m}.msgpack")
+    ap.add_argument("--ckpt-tpl", default="experiments/ckpt/f_ens_m{m}.npz")
     ap.add_argument("--rtol", type=float, default=1e-5)
     args = ap.parse_args()
     if args.cpu:

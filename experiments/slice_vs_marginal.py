@@ -31,7 +31,7 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="experiments/ckpt/f_r3e_a.msgpack")
+    ap.add_argument("--ckpt", default="experiments/ckpt/f_r3e_a.npz")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--K", type=int, default=64)
     ap.add_argument("--seed", type=int, default=1)

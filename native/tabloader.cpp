@@ -1,6 +1,6 @@
 // tabloader — native host-side tabular data pipeline.
 //
-// The TPU input pipeline's host half: memory-mapped multithreaded CSV →
+// The input pipeline's host half: memory-mapped multithreaded CSV →
 // float32 matrix parsing, in-place standardization, and deterministic
 // shuffled epoch index generation.  The reference delegates data loading to
 // MLUtils.DataLoader (pure Julia, single-threaded); for UCI-scale tabular

@@ -1,12 +1,12 @@
 """Test configuration: run on CPU with a virtual 8-device mesh.
 
-Multi-device correctness is tested the idiomatic JAX way — faking an 8-chip
+Multi-device correctness is tested the idiomatic JAX way — faking an 8-device
 topology on CPU with --xla_force_host_platform_device_count (SURVEY §4's
-recommendation); bench.py and __graft_entry__.entry exercise the real TPU.
+recommendation).  Tests marked `gpu` form the chip tier: they skip on the CPU
+(from the `gpu_backend` fixture) and run on a GPU machine with
 
-Expected wall times for `pytest -m "not slow"` on this 2-core host (xdist
--n 2 is the default via pyproject addopts): ~4m50s from a COLD compile
-cache (measured round 4; the suite is XLA-compile-bound), ~3m55s warm.
+    CNF_GPU_TESTS=1 python -m pytest tests/ -m gpu -n 0
+
 Heavy gradient/FD checks are slow-marked; run everything with `-m ""`.
 """
 
@@ -18,24 +18,16 @@ os.environ["XLA_FLAGS"] = (
 
 import jax
 
-# CNF_TPU_TESTS=1 leaves the real backend in place so tpu-marked tests (e.g.
-# tests/test_tpu_parity.py) exercise on-device kernel numerics; everything
-# else runs on the virtual CPU mesh.
-if os.environ.get("CNF_TPU_TESTS") != "1":
+# CNF_GPU_TESTS=1 leaves the real backend in place for the gpu-marked chip
+# tier; everything else runs on the virtual CPU mesh.
+if os.environ.get("CNF_GPU_TESTS") != "1":
     jax.config.update("jax_platforms", "cpu")
 
-# Persistent compilation cache: XLA compiles dominate suite wall time on this
-# 2-core host; cached executables make repeat runs (the common case) fast.
-# CNF_COMPILE_CACHE_DIR overrides the location (point it at an empty dir to
-# measure a true cold start); CNF_NO_COMPILE_CACHE=1 disables it entirely.
-if os.environ.get("CNF_NO_COMPILE_CACHE") != "1":
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("CNF_COMPILE_CACHE_DIR", "/tmp/cnf_jax_cache"),
-    )
-    # Low threshold: the suite's cost is hundreds of 0.3-3s compiles; the two
-    # xdist workers and repeat runs share them through the persistent cache.
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+from continuousnf_tpu.utils import enable_compile_cache
+
+# XLA compiles dominate suite wall time; the xdist workers and repeat runs
+# share them through the persistent cache.
+enable_compile_cache()
 
 import pytest
 
@@ -45,18 +37,22 @@ def rng_key():
     return jax.random.PRNGKey(0)
 
 
+@pytest.fixture
+def gpu_backend():
+    """Skip unless JAX's default backend is the GPU (the chip tier)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU backend (run with CNF_GPU_TESTS=1 on a GPU machine)")
+
+
 def pytest_configure(config):
-    config.addinivalue_line("markers", "slow: long-running regression gates")
-    config.addinivalue_line(
-        "markers", "tpu: requires the real TPU backend (run with CNF_TPU_TESTS=1)"
-    )
-    # TPU-marked runs must not fan out xdist workers: two processes sharing
-    # the one real chip deadlock/flake.  Fail fast instead of relying on the
-    # user remembering `-n 0` (the pyproject addopts default is `-n 2`).
-    if os.environ.get("CNF_TPU_TESTS") == "1":
+    # GPU runs must not fan out xdist workers: each JAX process reserves
+    # most of the card's memory when it starts, so a second one fails.
+    # Fail fast instead of relying on the user remembering `-n 0` (the
+    # pyproject addopts default is `-n 2`).
+    if os.environ.get("CNF_GPU_TESTS") == "1":
         n = getattr(config.option, "numprocesses", None)
         if n not in (None, 0):
             raise pytest.UsageError(
-                "CNF_TPU_TESTS=1 requires a single process: pass -n 0 "
-                "(xdist workers would share the one TPU chip)"
+                "CNF_GPU_TESTS=1 requires a single process: pass -n 0 "
+                "(xdist workers would share the one GPU)"
             )

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from continuousnf_tpu.nets import MLP
-from continuousnf_tpu.ops.fused_dynamics import (
+from continuousnf_tpu.core.dynamics import (
     exact_dense_chain_jacobian,
     is_dense_tanh_chain,
 )
@@ -95,7 +95,7 @@ def test_three_layer_train_exact_trace_matches_generic():
 )
 def test_chain_trace_matches_jacobian(dims, final_act):
     """Trace-only chain path (TEST-mode fast path) == trace of the full J."""
-    from continuousnf_tpu.ops.fused_dynamics import exact_dense_chain_trace
+    from continuousnf_tpu.core.dynamics import exact_dense_chain_trace
 
     nn = MLP(dims, final_activation=final_act)
     ps = nn.init(jax.random.PRNGKey(0))

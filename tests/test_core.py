@@ -393,7 +393,7 @@ def test_exact_trace_gradients_flow():
 
 def test_explicit_eps_shape_validation():
     # Explicit probes are (K, B, zdim); (B, zdim) is K=1 shorthand; anything
-    # else must raise clearly instead of dying inside the fused kernel.
+    # else must raise clearly instead of dying inside the field.
     nn = cnf.MLP((4, 8, 4))
     icnf = cnf.construct(cnf.RNODE, nn, 2, 2, compute_mode=cnf.VecJacMode())
     ps = icnf.init(jax.random.PRNGKey(0))

@@ -1,6 +1,5 @@
 """Stiff fallback (TR-BDF2 ESDIRK, `ode/implicit.py`): accuracy, L-stability
-payoff on a stiff problem, gradients through the DIRECT scan path, and
-megakernel ineligibility.
+payoff on a stiff problem, and gradients through the DIRECT scan path.
 
 The reference inherits its stiff fallback from Julia's `DefaultODEAlgorithm`
 (`/root/reference/src/base_icnf.jl:141`); here it is an explicit opt-in
@@ -104,19 +103,3 @@ def test_trbdf2_backsolve_gradient_finite():
     g = jax.grad(loss)(jnp.ones((3,)))
     # d/dy0 sum(y0 * e^-1) = e^-1 per coordinate.
     np.testing.assert_allclose(np.asarray(g), E1, rtol=5e-3)
-
-
-def test_trbdf2_megakernel_ineligible():
-    pytest.importorskip("jax.experimental.pallas")
-    from continuousnf_tpu import RNODE, construct
-    from continuousnf_tpu.nets import MLP
-    from continuousnf_tpu.ops.fused_solve import make_full_solve
-    from continuousnf_tpu.types import Mode, VecJacMode
-
-    icnf = construct(
-        RNODE, MLP((2, 32, 2)), 2, 0,
-        compute_mode=VecJacMode(fused=True),
-        solver=SolverOptions(method="trbdf2"),
-    )
-    assert make_full_solve(icnf, Mode.TRAIN, batch=8) is None
-    assert make_full_solve(icnf, Mode.TEST, batch=8) is None

@@ -1,11 +1,10 @@
-"""Native loader, toy data, and profiling-accounting tests."""
+"""Native loader and toy data tests."""
 
 import numpy as np
 import pytest
 
 from continuousnf_tpu.io import load_csv, native_available, shuffled_indices
 from continuousnf_tpu import data as toy_data
-from continuousnf_tpu.utils.profiling import fused_dynamics_cost, roofline_report
 import jax
 
 
@@ -54,28 +53,6 @@ def test_toy_datasets_shapes_and_ranges():
     assert g.shape == (100, 2)
     t = np.asarray(toy_data.synthetic_tabular(key, 100, 43))
     assert t.shape == (100, 43) and np.isfinite(t).all()
-
-
-def test_roofline_accounting():
-    flops, bytes_ = fused_dynamics_cost(4096, 16, 48)
-    assert flops == pytest.approx(8 * 4096 * 16 * 48, rel=0.2)
-    rep = roofline_report(measured_s=10e-6, B=4096, dz=16, H=48)
-    # No measured stage chain -> no stage-chain speedup claim; the headline
-    # utilization (vs the MXU-issue floor, the one unbeatable ceiling) is
-    # always present and <= measured/floor consistency holds.
-    assert "speedup_vs_stage_chain" not in rep
-    assert rep["utilization_vs_mxu_issue"] == pytest.approx(
-        rep["mxu_issue_est_us"] / rep["measured_us"]
-    )
-    assert rep["analytic_op_roofline_us"] == pytest.approx(
-        max(rep["analytic_flop_us"], rep["analytic_hbm_us"])
-    )
-    rep2 = roofline_report(
-        measured_s=10e-6, B=4096, dz=16, H=48, measured_sol_s=5e-6, xla_solve_nfe_s=40e-6
-    )
-    assert rep2["speedup_vs_stage_chain"] == pytest.approx(0.5)
-    assert rep2["sol_kind"] == "measured_xla_stage_chain"
-    assert rep2["speedup_vs_xla_solve"] == pytest.approx(4.0)
 
 
 def test_table_frontend_roundtrip():

@@ -96,7 +96,7 @@ def test_warm_start_from_checkpoint(tmp_path):
     model = _model()
     X = jax.random.uniform(jax.random.PRNGKey(0), (32, 2))
     res = cnf.fit(model, X, key=jax.random.PRNGKey(1))
-    path = str(tmp_path / "ps.msgpack")
+    path = str(tmp_path / "ps.npz")
     cnf.save_checkpoint(path, res.ps)
     template = jax.tree.map(jnp.zeros_like, res.ps)
     ps2 = cnf.load_checkpoint(path, template)
@@ -129,9 +129,9 @@ def test_exact_resume_from_state_checkpoint(tmp_path):
     mid = sorted(e for e in snaps if 0 < e < 8)[0]
     ps_mid, opt_mid = snaps[mid]
 
-    # Round-trip the snapshot through the msgpack checkpoint (what
+    # Round-trip the snapshot through the .npz checkpoint (what
     # literal_gates --resume does).
-    path = str(tmp_path / "mid.msgpack")
+    path = str(tmp_path / "mid.npz")
     save_checkpoint(path, {"ps": ps_mid, "opt": opt_mid, "epoch": mid})
     like = {"ps": ps_mid, "opt": opt_mid, "epoch": 0}
     loaded = load_checkpoint(path, like)

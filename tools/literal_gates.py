@@ -79,8 +79,7 @@ def build(config: str, seed: int, epochs: int, lr: float, batch_size: int,
           clip: float = 0.0, train_rtol: float = 0.0, method: str = "",
           direct_max_steps: int = 0, lam12: float = -1.0,
           steer_rate: float = 0.1, x_jitter: float = 0.0,
-          init_seed: int = -1, lam3: float = 1e-2, logit: bool = False,
-          fused: "bool | None" = None):
+          init_seed: int = -1, lam3: float = 1e-2, logit: bool = False):
     import dataclasses as dc
 
     from continuousnf_tpu.types import Adjoint
@@ -120,13 +119,7 @@ def build(config: str, seed: int, epochs: int, lr: float, batch_size: int,
         tspan=(0.0, 13.0), steer_rate=steer_rate, lam3=lam3, solver=solver,
         aug_noise=aug_noise, x_jitter=x_jitter,
         input_bijector="logit" if logit else None,
-        # Megakernels on by default on the real chip (round 4: the exact-
-        # divergence TRAIN stage is fused too, so the gate-winning recipe
-        # runs on the kernels it benchmarks; REGRESSION.md wall-time rows).
-        compute_mode=VecJacMode(
-            num_probes=probes, exact_trace=exact_trace,
-            fused=(jax.default_backend() == "tpu") if fused is None else fused,
-        ),
+        compute_mode=VecJacMode(num_probes=probes, exact_trace=exact_trace),
         **lam_kw,
     )
     # Optimisers.jl's Lion rule is decay-free (decay is composed separately
@@ -167,7 +160,7 @@ def main() -> None:
     ap.add_argument("--width-mult", type=int, default=3)  # hidden = mult*(nvars+naug)
     ap.add_argument("--eval-rtol", type=float, default=0.0,
                     help="tighter TestMode eval tolerance (0 = training solver opts)")
-    ap.add_argument("--save-ckpt", default="", help="msgpack path for final params")
+    ap.add_argument("--save-ckpt", default="", help=".npz path for final params")
     ap.add_argument(
         "--aug-noise", default=0.0,
         help='TRAIN aug-input noise sigma, or "calibrated" (= (2*pi)^{-1/2})',
@@ -194,14 +187,14 @@ def main() -> None:
                     "zero-lambda fine-tune phase measures/removes that bias")
     ap.add_argument(
         "--live-ckpt", default="",
-        help="msgpack path for periodic (ps, opt_state, epoch) snapshots; a "
+        help=".npz path for periodic (ps, opt_state, epoch) snapshots; a "
         "crashed run resumes from it with --resume (default: "
-        "experiments/ckpt/<config>_s<seed>_live.msgpack)",
+        "experiments/ckpt/<config>_s<seed>_live.npz)",
     )
     ap.add_argument("--resume", action="store_true",
                     help="resume bit-exactly from --live-ckpt if it exists")
     ap.add_argument("--init-ckpt", default="",
-                    help="warm-start params from this msgpack checkpoint "
+                    help="warm-start params from this .npz checkpoint "
                     "(fresh optimizer state and epoch counter)")
     ap.add_argument("--logit", action="store_true",
                     help="compose the flow with a fixed logit input bijector "
@@ -355,7 +348,7 @@ def main() -> None:
     from continuousnf_tpu.train.checkpoint import load_checkpoint, save_checkpoint
 
     live_ckpt = args.live_ckpt or (
-        f"experiments/ckpt/{args.config}_s{args.seed}_live.msgpack"
+        f"experiments/ckpt/{args.config}_s{args.seed}_live.npz"
     )
     import os
 
@@ -375,7 +368,7 @@ def main() -> None:
     if args.resume and os.path.exists(live_ckpt):
         from continuousnf_tpu.core.icnf import init_params
 
-        # Template pytree for msgpack deserialization: the same init fit()
+        # Template pytree for checkpoint loading: the same init fit()
         # would run (fit splits its key into (init, train)).
         init_key, _ = jax.random.split(fit_key)
         ps0 = init_params(icnf, init_key)

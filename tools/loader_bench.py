@@ -1,12 +1,13 @@
-"""Native CSV loader validation at UCI POWER scale (round-4 verdict item 8).
+"""Native CSV loader validation at UCI POWER scale.
 
 Generates a synthetic POWER-shaped CSV (2,049,280 rows x 6 float columns —
 the real UCI household-power file's shape; zero-egress environment, so the
 bytes are synthetic but the parse volume is real), loads it through the
 native mmap parser AND the NumPy fallback, checks equality, and reports
-MB/s + rows/s for the artifact (TABULAR_r05).
+MB/s + rows/s.  The CSV is written to experiments/data/ (not tracked) and
+removed afterwards unless --keep-csv names a path.
 
-Usage: python tools/loader_bench.py [--rows 2049280] [--out TABULAR_r05_loader.json]
+Usage: python tools/loader_bench.py [--rows 2049280] [--out loader.json]
 """
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
@@ -36,7 +36,9 @@ def main() -> None:
     # POWER-like marginals: positive, heavy-ish tails, 3-decimal formatting.
     data = np.abs(rng.normal(1.0, 0.8, size=(args.rows, args.cols))).astype(np.float32)
 
-    path = args.keep_csv or os.path.join(tempfile.gettempdir(), "power_synth.csv")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = args.keep_csv or os.path.join(repo, "experiments", "data", "power_synth.csv")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     t0 = time.perf_counter()
     with open(path, "w") as f:
         header = ",".join(f"c{i}" for i in range(args.cols))

@@ -12,7 +12,6 @@ import glob
 import json
 import os
 import sys
-import time
 
 import jax
 import numpy as np
@@ -70,7 +69,6 @@ def main():
 
     key = jax.random.PRNGKey(1)
     ok = True
-    t0 = time.time()
     cached: dict = {}
     if args.render_only:
         with open(CACHE) as f:
@@ -79,8 +77,7 @@ def main():
     lines = [
         "# REGRESSION — density-quality gates vs analytic pdfs",
         "",
-        f"Backend: {cached.get('backend', jax.default_backend())}  |  "
-        "gate: mad/msd/tv <= 0.1 (reference `test/regression_tests.jl:46-48`)",
+        "Gate: mad/msd/tv <= 0.1 (reference `test/regression_tests.jl:46-48`)",
         "",
         "Eval-tolerance convention: recipe rows train AND score at the "
         "README tolerances (rtol=3.45e-4/atol=1.19e-7, one solver config "
@@ -97,7 +94,7 @@ def main():
         status = "PASS" if passes else "FAIL"
         if gated:
             ok = ok and (passes or args.fast)
-        lines.append(f"## {title} ({rep['epochs']} epochs, {rep['wall_time_s']:.0f}s)")
+        lines.append(f"## {title} ({rep['epochs']} epochs)")
         lines.append(
             f"mad={rep['mad']:.4f} msd={rep['msd']:.4f} tv={rep['tv']:.4f} -> **{status}**"
         )
@@ -115,7 +112,6 @@ def main():
             return cached[key_]
         rep = fn()
         cached[key_] = rep
-        cached["backend"] = jax.default_backend()
         os.makedirs(os.path.dirname(CACHE), exist_ok=True)
         with open(CACHE, "w") as f:
             json.dump(cached, f, indent=1)
@@ -123,7 +119,7 @@ def main():
 
     def _report(recipe_out):
         rep = recipe_out[1]
-        return {k: getattr(rep, k) for k in ("mad", "msd", "tv", "epochs", "wall_time_s")}
+        return {k: getattr(rep, k) for k in ("mad", "msd", "tv", "epochs")}
 
     from continuousnf_tpu import recipes  # noqa: E402  (after platform pin)
 
@@ -205,42 +201,13 @@ def main():
             f"{'logit input bijector, ' if flag.get('logit') else ''}"
             f"adjoint={flag.get('adjoint')}, {flag['epochs']} epochs, "
             f"batch {flag['batch_size']}, eval rtol={flag.get('eval_rtol', 0):g} "
-            f"(`experiments/logs/{FLAGSHIP_RUN}.jsonl`, {flag['wall_s']:.0f}s)",
+            f"(`experiments/logs/{FLAGSHIP_RUN}.jsonl`)",
             "",
             f"tv_norm={f.get('tv_norm', float('nan')):.4f} "
             f"log_mad/d={f.get('log_mad_perdim', float('nan')):.4f} "
             f"-> **{'PASS' if passes_norm else 'FAIL'}**  |  literal absolute "
             f"triple (E[actual]≈40.6): mad={f.get('mad', float('nan')):.3g} "
             f"msd={f.get('msd', float('nan')):.3g} tv={f.get('tv', float('nan')):.3g}",
-            "",
-        ]
-    # Round-4 kernel-path evidence: the SAME gated recipe ran unfused in
-    # round 3 (exact-trace was megakernel-ineligible then); comparing its
-    # wall against this round's fused run is the end-to-end speedup of
-    # fusing the exact-divergence TRAIN stage + adjoint.
-    sums_all = _summaries()
-
-    def _min_wall(prefix):
-        ws = [
-            s["wall_s"]
-            for k, s in sums_all.items()
-            if k.startswith(prefix) and "wall_s" in s
-        ]
-        return min(ws) if ws else None
-
-    w3 = _min_wall("flagship_r3_gated")
-    w4 = _min_wall("flagship_r4_gated")
-    w5 = _min_wall("flagship_r5_gated")
-    if flag is not None and w3 and w4 and w5:
-        lines += [
-            f"Kernel path: the same gated recipe at identical epochs ran "
-            f"unfused (round 3, best-of-seeds fit wall {w3:.0f}s), on the "
-            f"round-4 fused megakernels at f32-HIGHEST stages ({w4:.0f}s, "
-            f"{w3/max(w4,1e-9):.2f}x), and on the round-5 kernels (V4 "
-            f"exact stage + bf16x3 auto precision, docs/ROUND5.md) in "
-            f"{w5:.0f}s — {w3/max(w5,1e-9):.2f}x vs unfused, "
-            f"{w4/max(w5,1e-9):.2f}x vs round 4 (min over seeds excludes "
-            f"one-time Mosaic compiles).",
             "",
         ]
     ok = ok and (passes_norm or args.fast)
@@ -359,10 +326,7 @@ def main():
             )
         else:
             lines.append(f"| {label} | (log `{k}` missing) | — | no |")
-    lines += [
-        "",
-        f"Total wall time: {time.time()-t0:.0f}s",
-    ]
+    lines.append("")
     with open("REGRESSION.md", "w") as f:
         f.write("\n".join(lines) + "\n")
     print("wrote REGRESSION.md; overall:", "PASS" if ok else "FAIL")

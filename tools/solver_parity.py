@@ -46,7 +46,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--trained", default="",
-                    help="msgpack params checkpoint (default: random init — "
+                    help=".npz params checkpoint (default: random init — "
                     "plus a mid-train surrogate with scaled weights)")
     ap.add_argument("--out", default="docs/SOLVER_PARITY.md")
     args = ap.parse_args()
